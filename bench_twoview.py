@@ -1,17 +1,16 @@
-"""Pairwise matching benchmark on the reference's own images
-(BASELINE.json config 3: type-aware matching + two-view geometry on the
-data/ pairs).
+"""Pairwise cross-scale matching benchmark (BASELINE.json config 3:
+type-aware matching + two-view geometry on the reference's data/ pairs,
+where 640-N.jpg is 800-N.jpg downsampled by exactly 1.25x).
 
-The data/ set pairs up as four cross-scale views of the same photos:
-640-N.jpg is 800-N.jpg downsampled by exactly 1.25x (and 1600.jpg is
-scene 3 at 2048x1536 = 2.56x), which gives matching an EXACT ground
-truth: a correct match satisfies x_800 = 1.25 * x_640 to within a couple
-of pixels. For each scene this benchmark runs detect+describe on both
+Each of four seeded scenes (sfm/synthetic.scene_views) is rendered at
+640x480 and at 800x600 from the same camera, which gives matching an
+EXACT ground truth: a correct match satisfies x_800 = 1.25 * x_640 to
+within a couple of pixels. For each scene this benchmark runs detect+describe on both
 scales, type-aware mutual-best matching, and reports the fraction of
 matches consistent with the known scale map (<= 3 px) -- a true
 precision number, not a RANSAC self-consistency score. It also runs the
 guided matcher (H = diag(1.25, 1.25, 1), reference GetGuidedSiftMatch
-semantics with F=None) to exercise the guided path on real data.
+semantics with F=None) to exercise the guided path.
 
 Two-view *pose* recovery is deliberately not run here: same-center
 image pairs have zero baseline, so F/E estimation is degenerate by
@@ -39,7 +38,10 @@ def main():
 
     from hessgpu_tpu import HessianSift, SiftConfig, SiftMatcher
     from hessgpu_tpu.sfm.incremental import _match_pair
+    from hessgpu_tpu.sfm.synthetic import scene_views
+    from hessgpu_tpu.utils.compile_cache import enable_compile_cache
 
+    enable_compile_cache()
     t0 = time.time()
     sift = HessianSift(SiftConfig())
     matcher = SiftMatcher()
@@ -47,8 +49,9 @@ def main():
 
     scenes = []
     for n in (1, 2, 3, 4):
-        f_lo = sift.run(f"/root/reference/data/640-{n}.jpg")
-        f_hi = sift.run(f"/root/reference/data/800-{n}.jpg")
+        # one seeded scene rendered at both sizes from the same camera
+        f_lo = sift.run(scene_views(n, 480, 640)[0])
+        f_hi = sift.run(scene_views(n, 600, 800)[0])
         m = _match_pair(f_lo, f_hi, matcher)
 
         p_lo = np.stack([f_lo["x"][m[:, 0]], f_lo["y"][m[:, 0]]], 1)

@@ -1,9 +1,9 @@
-// hess_server: native TCP feature server for the TPU Hessian/SIFT pipeline.
+// hess_server: native TCP feature server for the Hessian/SIFT pipeline.
 //
 // Architecture mirrors the reference ServerSiftGPU server loop
 // (reference: src/ServerSiftGPU/ServerSiftGPU.cpp:239-530 + server.cpp):
 // C++ owns the process, the listening socket, and the binary command
-// protocol; the embedded CPython interpreter runs the JAX/TPU compute via
+// protocol; the embedded CPython interpreter runs the JAX compute via
 // hessgpu_tpu.server_backend.ServerBackend. The wire protocol is
 // command-compatible with the reference (same command IDs, same framing:
 // raw little-endian ints, newline-terminated strings, SiftKeypoint =
@@ -260,7 +260,7 @@ void ServeConnection(int fd, PyBackend* backend) {
       }
       case COMMAND_ALLOCATE_PYRAMID: {
         int size[2];
-        ReadInt(fd, size, 2);  // pyramid sizing is automatic on TPU
+        ReadInt(fd, size, 2);  // pyramid sizing is automatic here
         break;
       }
       case COMMAND_RUNSIFT: {
@@ -367,7 +367,7 @@ void ServeConnection(int fd, PyBackend* backend) {
       }
       case COMMAND_MATCH_SET_LANGUAGE: {
         int language = 0;
-        ReadInt(fd, &language);  // single backend on TPU
+        ReadInt(fd, &language);  // single backend here
         break;
       }
       case COMMAND_MATCH_SET_DES_FLOAT:
@@ -437,17 +437,18 @@ static int RunSelfTest(const char* host, int port, const std::string& params) {
       "sys.path.insert(0, root)\n");
   std::string code =
       "from hessgpu_tpu.parallel.client import RemoteSift\n"
+      "from hessgpu_tpu.sfm.synthetic import scene_views\n"
       "host = " + (host ? ("'" + std::string(host) + "'") : std::string("None")) + "\n"
       "port = " + std::to_string(port) + "\n"
       "params = '''" + params + "'''\n"
       "with RemoteSift(host=host, port=port) as r:\n"
       "    assert r.initialize(), 'init failed'\n"
       "    if params.strip(): r.parse_param(params.strip())\n"
-      "    for img in ('/root/reference/data/800-1.jpg',\n"
-      "                '/root/reference/data/800-2.jpg'):\n"
-      "        ok = r.run_sift(img)\n"
+      "    # two seeded 800x600 views in place of the reference's 800-1/2.jpg\n"
+      "    for i, img in enumerate(scene_views(0, 600, 800, (0.45, 0.55))):\n"
+      "        ok = r.run_sift_data(img)\n"
       "        n = r.get_feature_count()\n"
-      "        print('%s: ok=%s features=%d' % (img, ok, n), flush=True)\n"
+      "        print('view %d: ok=%s features=%d' % (i, ok, n), flush=True)\n"
       "        assert ok and n > 0\n"
       "print('hess_server self-test passed', flush=True)\n";
   int rc = PyRun_SimpleString(code.c_str());

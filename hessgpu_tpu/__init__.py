@@ -1,5 +1,5 @@
-"""hessgpu_tpu: a TPU-native Hessian interest-point detector + SIFT
-descriptor framework (JAX/XLA/Pallas re-architecture of sloup/hessgpu),
+"""hessgpu_tpu: a Hessian interest-point detector + SIFT descriptor
+framework (JAX/XLA re-architecture of sloup/hessgpu),
 plus matching, two-view geometry, and SfM layers.
 
 Public API mirrors the reference's SiftGPU/SiftMatchGPU surface

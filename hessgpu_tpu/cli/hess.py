@@ -1,6 +1,6 @@
 """hess: batch detect+describe CLI.
 
-TPU port of the reference `hess` tool (src/HessGPU/hessgpucmd.cpp):
+JAX port of the reference `hess` tool (src/HessGPU/hessgpucmd.cpp):
   hess -i img1.jpg img2.jpg ... [-o out.sift] [sift options]
   hess -il list.txt [sift options]
   hess -time: write per-stage CSV to <img>.timings (hessgpucmd.cpp:84-192)
@@ -103,7 +103,9 @@ def main(argv=None):
         print(HELP)
         return 0
     from hessgpu_tpu import HessianSift, SiftConfig
+    from hessgpu_tpu.utils.compile_cache import enable_compile_cache
 
+    enable_compile_cache()
     images, out_path, do_time, do_speed, dump_dir, rest = parse_cli(argv)
     if not images:
         print("usage: hess (-i <images...> | -il <list>) [-o out.sift] "

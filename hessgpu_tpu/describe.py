@@ -1,6 +1,6 @@
 """Descriptor service for externally supplied keypoints.
 
-TPU equivalent of RunSIFT(num, keys, has_orientation) - the keypoint-list
+JAX equivalent of RunSIFT(num, keys, has_orientation) - the keypoint-list
 re-entry path (reference SiftGPU.cpp:307-315, SiftPyramid::SetKeypointList
 SiftPyramid.cpp:326-355, PyramidCU::GenerateFeatureListTex
 PyramidCU.cpp:555-718). COLMAP-style SfM systems use this to compute
@@ -44,12 +44,16 @@ def _pyramid_gradients(img, plan: PipelinePlan, cfg_key):
     for gauss_oct in octaves:
         if cfg.detector == "hessian":
             _, grad, rot = hessian.hessian_response_and_gradient(
-                gauss_oct, [1.0] * gauss_oct.shape[0])
+                gauss_oct, [1.0] * gauss_oct.shape[0],
+                grad_levels=p.key_levels)
+            shift = 0
         else:
+            # DoG gradients come from gauss[1:] (see pyramid._detect_octave)
             _, grad, rot = hessian.dog_response_and_gradient(gauss_oct)
+            shift = 1
         for kl in p.key_levels:
-            grads.append(grad[kl])
-            rots.append(rot[kl])
+            grads.append(grad[kl - shift])
+            rots.append(rot[kl - shift])
     return grads, rots
 
 
@@ -73,59 +77,6 @@ def _orient_and_describe_level(x, y, sigma, theta, valid, grad_rot,
         x, y, sigma, theta, valid, grad, rot, wsize=dwin,
         window_factor=cfg.descriptor_window_factor,
         half_sift=cfg.half_sift, normalize=cfg.normalized_sift)
-    return theta, desc
-
-
-@functools.partial(jax.jit, static_argnums=(7, 8, 9, 10))
-def _describe_all_pallas(img, x, y, sigma, theta, valid, level_id,
-                         plan: PipelinePlan, owin: int, dwin: int, cfg_key):
-    """Accelerator path for the keypoint re-entry service: pyramid +
-    per-key-level gradient maps + packed canvas + the Pallas orientation
-    (single strongest, like the reference's existing-keypoint mode) and
-    descriptor kernels, all in one program."""
-    from .ops.pallas.patch import (build_padded_stack, descriptor_pallas,
-                                   orientation_pallas)
-
-    cfg, skip_orientation, interpret = cfg_key
-    cfg = cfg.cfg
-    p = cfg.scale_params()
-    octaves = _build_pyramid(img, plan, cfg)
-    grads, rots = [], []
-    for gauss_oct in octaves:
-        if cfg.detector == "hessian":
-            _, grad, rot = hessian.hessian_response_and_gradient(
-                gauss_oct, [1.0] * gauss_oct.shape[0], grad_levels=p.key_levels)
-        else:
-            _, grad, rot = hessian.dog_response_and_gradient(gauss_oct)
-            grad = jnp.concatenate([grad[:1], grad], axis=0)
-            rot = jnp.concatenate([rot[:1], rot], axis=0)
-        for kl in p.key_levels:
-            grads.append(grad[kl])
-            rots.append(rot[kl])
-
-    pad = (max(owin, dwin) - 1) // 2 + 2
-    cdt = jnp.bfloat16 if cfg.canvas_bf16 else jnp.float32
-    pstack = build_padded_stack(grads, rots, pad, dtype=cdt)
-
-    if not skip_orientation:
-        o_thetas, _ = orientation_pallas(
-            x, y, sigma, valid, level_id, pstack,
-            wsize=owin, pad=pad,
-            gaussian_factor=cfg.orientation_gaussian_factor,
-            window_factor=cfg.orientation_window_factor,
-            half_sift=cfg.half_sift, single=True, interpret=interpret)
-        theta = o_thetas[:, 0]
-    desc = descriptor_pallas(
-        x, y, sigma, theta, valid, level_id, pstack,
-        wsize=dwin, pad=pad, mxu=True,
-        window_factor=cfg.descriptor_window_factor, interpret=interpret)
-    desc = jnp.where(valid[:, None], desc, 0.0)
-    if cfg.half_sift:
-        d = desc.reshape(-1, 16, 8)
-        desc = (d[..., :4] + d[..., 4:]).reshape(-1, 64)
-    if cfg.normalized_sift:
-        from .ops.descriptor import normalize_descriptors
-        desc = normalize_descriptors(desc, valid)
     return theta, desc
 
 
@@ -220,7 +171,6 @@ def describe_keypoints(
     keys: np.ndarray,
     cfg: Optional[SiftConfig] = None,
     has_orientation: bool = True,
-    _force_pallas: bool = False,
 ) -> Dict[str, np.ndarray]:
     """Compute SIFT descriptors (and optionally orientations) for given
     keypoints on an image.
@@ -276,45 +226,6 @@ def describe_keypoints(
             sel &= assigned < 0
             assigned[sel] = idx
         octave_sigma *= 2.0
-
-    on_accel = jax.default_backend() != "cpu"
-    if (cfg.use_pallas and on_accel or _force_pallas) and n > 0:
-        # accelerator path: ONE fused jit - pyramid + gradient maps +
-        # packed canvas + the same per-keypoint window-DMA kernels the
-        # detection pipeline uses (the jnp per-level formulation below
-        # lowers to scalar-core gathers on TPU). Input order is preserved,
-        # so no reorder bookkeeping is needed.
-        osig = (2.0 ** (assigned // s).astype(np.float32)) \
-            * float(1 << cfg.first_octave)
-        fx = (kx - offset) / osig + 0.5
-        fy = (ky - offset) / osig + 0.5
-        fs = ks / osig
-        ft = np.mod(TWO_PI - kt, TWO_PI).astype(np.float32)
-        cap = max(8, 1 << int(math.ceil(math.log2(max(n, 2)))))
-        padn = cap - n
-        valid = np.zeros(cap, bool)
-        valid[:n] = True
-        fx = np.pad(fx, (0, padn)); fy = np.pad(fy, (0, padn))
-        fs = np.pad(fs, (0, padn), constant_values=1.0)
-        ft = np.pad(ft, (0, padn))
-        lid = np.pad(assigned, (0, padn))
-
-        max_sigma = float(fs[:n].max())
-        owin = 2 * int(math.ceil(
-            max_sigma * cfg.orientation_gaussian_factor
-            * cfg.orientation_window_factor + 1.0)) + 1
-        dwin = descriptor_window_size(max_sigma,
-                                      cfg.descriptor_window_factor)
-        theta_dev, desc = _describe_all_pallas(
-            arr, jnp.asarray(fx), jnp.asarray(fy), jnp.asarray(fs),
-            jnp.asarray(ft), jnp.asarray(valid), jnp.asarray(lid),
-            plan, owin, dwin,
-            (_CfgKey(cfg), skip_orientation, not on_accel))
-        theta_img = np.mod(TWO_PI - np.asarray(theta_dev[:n]), TWO_PI)
-        out_theta[:] = kt if skip_orientation else theta_img
-        out_desc[:] = np.asarray(desc)[:n]
-        return {"x": kx, "y": ky, "sigma": ks, "theta": out_theta,
-                "desc": out_desc}
 
     octave_sigma = float(1 << cfg.first_octave)
     for o in range(plan.num_octaves):

@@ -2,7 +2,7 @@
 
 Equivalent of the SiftGPU class (reference SiftGPU.{h,cpp}): image/list
 management, lazy initialization, RunSIFT overloads, and result accessors -
-minus the GL context machinery that has no TPU counterpart.
+minus the GL context machinery that has no counterpart here.
 """
 
 from __future__ import annotations
@@ -227,7 +227,7 @@ class HessianSift:
         """Pre-warm the compile cache for an image size.
 
         The reference pre-allocates GPU pyramid storage
-        (SiftGPU::AllocatePyramid); the TPU analogue is compiling the
+        (SiftGPU::AllocatePyramid); the analogue here is compiling the
         pipeline for the (height, width) bucket ahead of time.
         """
         dummy = np.zeros((height, width), np.float32)

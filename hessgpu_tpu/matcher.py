@@ -1,12 +1,12 @@
-"""Descriptor matching on the MXU.
+"""Descriptor matching as one matrix product.
 
-TPU-native equivalent of SiftMatchGPU/SiftMatchCU (reference
+Equivalent of SiftMatchGPU/SiftMatchCU (reference
 SiftMatch.{h,cpp}, SiftMatchCU.{h,cpp}, matcher kernels
 ProgramCU.cu:3446-3843). The reference's hand-tiled u8 dot-product kernel +
 row/col argmax reductions become one matmul and two argmax/masks:
 
   * descriptors are quantized u8 = int(512*d + 0.5) (SiftMatchCU.cpp:87-101);
-    the integer dot matrix is computed exactly on the MXU in bf16xbf16->f32
+    the integer dot matrix is computed exactly in bf16xbf16->f32
     (u8 values and 128-term dot products are exactly representable).
   * distance is angular: acos(dot / 512^2) (ProgramCU.cu:3790, constant
     0.000003814697265625 = 1/512^2).

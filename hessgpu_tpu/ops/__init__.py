@@ -1,1 +1,1 @@
-"""Compute kernels (jnp reference implementations + Pallas TPU kernels)."""
+"""Compute stages of the pipeline, in plain jax.numpy / lax."""

@@ -1,6 +1,6 @@
 """SIFT descriptor computation: rotated 4x4 cell grid, 8 orientation bins.
 
-Vectorized TPU equivalent of ComputeDescriptor_Kernel
+Vectorized equivalent of ComputeDescriptor_Kernel
 (ProgramCU.cu:1650-1948) + NormalizeDescriptor (ProgramCU.cu:1950-2103).
 
 The CUDA kernel runs 16 threads per keypoint (one per cell), each scanning
@@ -300,31 +300,3 @@ def normalize_descriptors(desc: jnp.ndarray, kvalid=None) -> jnp.ndarray:
     if kvalid is not None:
         out = jnp.where(kvalid[:, None], out, 0.0)
     return out
-
-
-def finalize_descriptors(raw: jnp.ndarray, kvalid: jnp.ndarray,
-                         half_sift: bool, normalize: bool) -> jnp.ndarray:
-    """Mask + half-SIFT fold + normalize, consuming the descriptor
-    kernel's native (G, 16, 8) cell/bin layout.
-
-    Reshaping (G, 16, 8) -> (G, 128) before the fold/normalize forced a
-    relayout copy (~0.27 ms per 16k-slot chunk at B=16); operating on
-    the 3-D layout lets XLA fuse the final reshape into the normalize
-    fusion. Sums reduce over the same 128 elements (grouping differs
-    from the flat form by ~1 ulp).
-    """
-    if raw.ndim == 2:
-        raw = raw.reshape(-1, 16, 8)
-    d = jnp.where(kvalid[:, None, None], raw, 0.0)
-    if half_sift:
-        d = d[..., :4] + d[..., 4:]
-    if normalize:
-        eps = 1e-12
-        n1 = jax.lax.rsqrt(jnp.sum(d * d, axis=(-2, -1), keepdims=True)
-                           + eps)
-        d2 = jnp.minimum(0.2, d * n1)
-        n2 = jax.lax.rsqrt(jnp.sum(d2 * d2, axis=(-2, -1), keepdims=True)
-                           + eps)
-        d = d2 * n2
-        d = jnp.where(kvalid[:, None, None], d, 0.0)
-    return d.reshape(d.shape[0], -1)

@@ -1,6 +1,6 @@
 """Cross-level window gathers from flattened pyramid buffers.
 
-The TPU-native answer to per-keypoint windows that live on different pyramid
+The answer here to per-keypoint windows that live on different pyramid
 levels: all levels' gradient/rotation maps are concatenated into one flat
 buffer; each keypoint carries its level's (base offset, height, width) and
 gathers a static-size window with one vectorized `take`. This lets a single

@@ -1,10 +1,10 @@
 """Separable Gaussian filtering and pyramid construction.
 
-TPU-native equivalent of the reference's FilterH/FilterV CUDA kernels
+Equivalent of the reference's FilterH/FilterV CUDA kernels
 (ProgramCU.cu:117-512): separable 1-D convolution with clamp-to-edge
 boundaries and per-level tap widths. Tap vectors are Python-time constants
-baked into the trace; XLA lowers the convolutions onto the TPU; a fused
-Pallas kernel (ops/pallas/conv.py) replaces the hot path when enabled.
+baked into the trace, and XLA compiles the convolutions for the device
+(cuDNN or its own generated kernels on a GPU).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Per-keypoint orientation assignment: 36-bin gradient histograms.
 
-Vectorized TPU equivalent of ComputeOrientation_Kernel
+Vectorized equivalent of ComputeOrientation_Kernel
 (ProgramCU.cu:1221-1645). The CUDA kernel walks a per-keypoint dynamic
 window; here every keypoint gathers a static, level-sized window (vmapped
 dynamic slices) and invalid pixels are masked - identical vote sets.

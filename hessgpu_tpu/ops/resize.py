@@ -1,6 +1,6 @@
 """Image resampling and input conversion ops.
 
-TPU equivalents of the reference's sampling kernels:
+Equivalents of the reference's sampling kernels:
   * DownsampleKernel / SampleImageD (ProgramCU.cu:312-367): decimation by
     2^k taking every 2^k-th pixel starting at (0, 0).
   * UpsampleKernel / SampleImageU (ProgramCU.cu:233-310): bilinear x2^k
@@ -12,7 +12,6 @@ TPU equivalents of the reference's sampling kernels:
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 
 # BT.601 luminance weights (reference ProgramCU.cu:381 and
@@ -21,24 +20,9 @@ _LUMA = (0.299, 0.587, 0.114)
 
 
 def downsample(x: jnp.ndarray, log_scale: int = 1) -> jnp.ndarray:
-    """Decimate (H, W) by 2**log_scale, keeping pixels at multiples of the step.
-
-    On TPU every XLA lowering of this is relayout-bound (device-profiled
-    on a (16, 480, 640) f32 batch: strided 1x1 conv 1.03 ms, [::s, ::s]
-    strided slice 0.48 ms - vs ~0.03 ms of raw bandwidth), so the f32
-    by-2 case runs a small Pallas kernel that decimates with exact 0/1
-    selection dots on the MXU (ops/pallas/conv.downsample2_pallas);
-    results are bit-identical to the slice.
-    """
+    """Decimate (H, W) by 2**log_scale, keeping pixels at multiples of the
+    step. A strided slice: XLA fuses it into its consumer."""
     s = 1 << log_scale
-    if not jnp.issubdtype(x.dtype, jnp.floating):
-        return x[..., ::s, ::s]
-    if jax.default_backend() != "cpu" and x.dtype == jnp.float32 \
-            and 2 <= x.ndim <= 3:
-        from .pallas.conv import downsample2_pallas
-        for _ in range(log_scale):
-            x = downsample2_pallas(x)
-        return x
     return x[..., ::s, ::s]
 
 

@@ -1,9 +1,9 @@
 """Multi-host / multi-chip distribution helpers.
 
-TPU-native replacement for the reference's distribution story (SURVEY.md
+Replacement for the reference's distribution story (SURVEY.md
 section 2.5/5.8): where HessGPU used TCP sockets for feature transport and
-one process per GPU, here `jax.distributed` + XLA collectives over ICI/DCN
-carry everything:
+one process per GPU, here `jax.distributed` + XLA collectives (NCCL over
+NVLink between the cards of a host) carry everything:
 
   * initialize(): multi-host program launch (the analogue of starting one
     server per GPU, ServerSiftGPU.cpp usage comment SiftGPU.h:378-396).
@@ -158,17 +158,11 @@ def match_sharded(d1: jnp.ndarray, d2: jnp.ndarray, mesh: Mesh,
             d2t = d2r.reshape(ntile, n2_tile, -1)
             l2t = l2r.reshape(ntile, n2_tile, -1) if guided else \
                 jnp.zeros((ntile, 1, 1))
-            # row tiling bounds the live block to (n1_tile, n2_tile):
-            # a single (nloc, n2_tile) step at nloc=65536 is a ~2.6 GB
-            # working set whose wall time proved pathologically
-            # runtime-sensitive (4-200 s for the same program); bounded
-            # 8192^2 steps behave like every other kernel here. Column
-            # stats merge across row tiles with the same exact top-2
-            # merge the column-tile scan uses.
-            # measured cliff (65536^2 u8 table, one v5e): tile 8192 ->
-            # 21.5 s, 16384 -> 6.8 s, 32768 -> 240 s (the f32 dot block
-            # + its top-2 masks past ~1-4 GB thrash the HBM allocator),
-            # so the row tile clamps at 16384 even for larger n2_tile
+            # row tiling bounds the live block to (n1_tile, n2_tile) so
+            # the f32 dot block and its top-2 masks stay a bounded working
+            # set. Column stats merge across row tiles with the same
+            # exact top-2 merge the column-tile scan uses. The clamp at
+            # 16384 rows is an untuned default on this device.
             n1_tile = min(n2_tile, nloc, 16384)
             nrt = -(-nloc // n1_tile)
             nlocp = nrt * n1_tile

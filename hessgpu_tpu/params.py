@@ -1,6 +1,6 @@
 """Scale-space parameters for the Hessian/SIFT detector.
 
-TPU-native re-derivation of the reference SiftParam math
+JAX re-derivation of the reference SiftParam math
 (reference: src/SiftGPU/SiftGPU.cpp:466-563, SiftGPU.h:59-88).
 
 The reference has two "personalities":
@@ -229,7 +229,7 @@ def max_features_per_level(height: int, width: int,
 
     Reference policy: <= 0.5% of pixels and <= 4096 per level
     (GlobalUtil.cpp:67-68, PyramidCU.cpp:443-451). Rounded up to a multiple
-    of 8 to keep TPU-friendly shapes.
+    of 8.
     """
     cap = int(height * width * max_percent)
     cap = max(32, min(cap, max_per_level))

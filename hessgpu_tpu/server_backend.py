@@ -2,7 +2,7 @@
 
 The C++ server owns the process, sockets, and the reference-compatible
 command protocol (ServerSiftGPU.cpp:239-530); it calls into this module for
-the actual TPU compute. The split mirrors the reference architecture where
+the actual device compute. The split mirrors the reference architecture where
 the server loop wraps the SiftGPU library.
 
 All buffers cross the boundary as bytes in the reference wire layout:
@@ -23,7 +23,9 @@ class ServerBackend:
         from .config import SiftConfig
         from .detector import HessianSift
         from .matcher import SiftMatcher
+        from .utils.compile_cache import enable_compile_cache
 
+        enable_compile_cache()
         args = params.split() if params else []
         self.config = SiftConfig.parse_args(args)
         self.sift = HessianSift(self.config)

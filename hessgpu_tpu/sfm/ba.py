@@ -1,13 +1,12 @@
 """Bundle adjustment: Levenberg-Marquardt with matrix-free PCG.
 
-North-star component (no reference code; SURVEY.md section 7.6). Design is
-TPU-first:
+North-star component (no reference code; SURVEY.md section 7.6). Design:
   * residuals/Jacobians vectorized over the observation list (cam_idx,
     pt_idx, uv) - no per-camera Python loops;
   * the Gauss-Newton system is solved matrix-free: H v = J^T(J v) via
     jvp/vjp, preconditioned by the block-diagonal (6x6 pose / 3x3 point)
     blocks - every op is a gather/segment-sum/matmul that XLA maps onto
-    the TPU, and the same products distribute across hosts with psum when
+    the device, and the same products distribute across hosts with psum when
     observations are sharded (parallel/distributed.py);
   * rotations live on the manifold: increments are axis-angle deltas
     composed by exponential map each LM step.
@@ -19,15 +18,15 @@ x_cam = R_c @ X + t_c; projection is pinhole with per-camera (f, cx, cy).
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Tuple
 
 import jax
 import jax.numpy as jnp
 
 # All contractions here are tiny (3x3 rotations, 6x6 blocks) but feed a
-# Krylov solver: TPU's default bf16 matmul passes stall PCG convergence
-# (measured: final RMSE 0.90 px vs 0.45 px on the bench_ba problem), so
-# every dot in this module requests full f32.
+# Krylov solver: a GPU may run an f32 matmul in TF32 (about three decimal
+# digits), which is too coarse for PCG to converge to the f32 solution,
+# so every dot in this module requests full f32.
 _HI = jax.lax.Precision.HIGHEST
 
 
@@ -76,64 +75,22 @@ def so3_exp(w):
     return eye + a[..., None, None] * K + b[..., None, None] * _mm(K, K)
 
 
-_PT_BLK = 128  # low-index width of the two-level point selector
-
-
-def _selectors(prob: BAProblem, C: int, P: int):
-    """One-hot selector matrices for the MXU gather formulation.
-
-    XLA executes the per-observation gathers R[cam_idx]/X[pt_idx] (and
-    their scatter-add transposes inside vjp) on the TPU scalar core at
-    ~ns/element - measured ~4 ms per CG iteration on the bench_ba
-    problem for ~10 MFLOP of real work, making BA SLOWER on a v5e than
-    on the host CPU (8.1 vs 13.3 LM it/s). Selecting rows with one-hot
-    matmuls instead puts both directions on the MXU: selection sums
-    touch exactly one element each (bit-exact vs the gather); only the
-    transposed accumulation order differs from segment_sum (~1-ulp).
-
-    The camera side is a plain (O, C) one-hot. The point side would be
-    (O, P) - 536 MB at map scale - so it splits two-level: a (O, P/K)
-    block selector matmul picks each observation's K-row block, a
-    (O, K) within-block contraction picks the row.
-    """
-    Ec = jax.nn.one_hot(prob.cam_idx, C, dtype=jnp.float32)
-    K = min(_PT_BLK, P)
-    nblk = -(-P // K)
-    Ehi = jax.nn.one_hot(prob.pt_idx // K, nblk, dtype=jnp.float32)
-    Elo = jax.nn.one_hot(prob.pt_idx % K, K, dtype=jnp.float32)
-    return Ec, Ehi, Elo, K, nblk
-
-
-def _project(state: BAState, delta_pose, delta_pt, prob: BAProblem,
-             dense: bool = False):
+def _project(state: BAState, delta_pose, delta_pt, prob: BAProblem):
     """Residuals with tangent-space increments applied.
 
-    delta_pose: (C, 6) [axis-angle | dt]; delta_pt: (P, 3).
-    dense: route the per-observation selections through one-hot matmuls
-    (see _selectors) - the TPU formulation of the gather/scatter pair.
+    delta_pose: (C, 6) [axis-angle | dt]; delta_pt: (P, 3). Observations
+    select their camera and point by gather (the vjp's transpose is a
+    segment sum).
     """
     dR = so3_exp(delta_pose[:, :3])
     R = _mm(dR, state.R)
     t = state.t + delta_pose[:, 3:]
     X = state.X + delta_pt
 
-    if dense:
-        C = R.shape[0]
-        P = X.shape[0]
-        Ec, Ehi, Elo, K, nblk = _selectors(prob, C, P)
-        sel_c = lambda a: jnp.matmul(Ec, a.reshape(C, -1), precision=_HI)
-        Rc = sel_c(R).reshape(-1, 3, 3)
-        tc = sel_c(t)
-        intr = sel_c(state.intr)
-        Xpad = jnp.pad(X, ((0, nblk * K - P), (0, 0)))
-        blk = jnp.matmul(Ehi, Xpad.reshape(nblk, K * 3),
-                         precision=_HI).reshape(-1, K, 3)
-        Xp = jnp.einsum("ok,okc->oc", Elo, blk, precision=_HI)
-    else:
-        Rc = R[prob.cam_idx]
-        tc = t[prob.cam_idx]
-        intr = state.intr[prob.cam_idx]
-        Xp = X[prob.pt_idx]
+    Rc = R[prob.cam_idx]
+    tc = t[prob.cam_idx]
+    intr = state.intr[prob.cam_idx]
+    Xp = X[prob.pt_idx]
     xc = jnp.einsum("oij,oj->oi", Rc, Xp, precision=_HI) + tc
     z = jnp.maximum(xc[:, 2], 1e-6)
     u = intr[:, 0] * xc[:, 0] / z + intr[:, 1]
@@ -142,10 +99,10 @@ def _project(state: BAState, delta_pose, delta_pt, prob: BAProblem,
     return res * prob.weight[:, None]
 
 
-def _residual_fn(state, prob, dense: bool = False):
+def _residual_fn(state, prob):
     def fn(params):
         dp, dx = params
-        return _project(state, dp, dx, prob, dense=dense)
+        return _project(state, dp, dx, prob)
     return fn
 
 
@@ -208,19 +165,12 @@ def huber_weights(state: BAState, prob: BAProblem, delta: float):
     return robust_weights(state, prob, delta, loss="huber")
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("cg_iters", "fix_first_cam", "dense"))
+@functools.partial(jax.jit, static_argnames=("cg_iters", "fix_first_cam"))
 def lm_step(state: BAState, prob: BAProblem, lam, cg_iters: int = 30,
-            fix_first_cam: bool = True, dense: Optional[bool] = None):
+            fix_first_cam: bool = True):
     """One Levenberg-Marquardt step. Returns (new_state, new_lam, cost,
-    new_cost, accepted).
-
-    dense: one-hot-matmul observation selection for the PCG hot loop
-    (see _selectors); default on for accelerators, off on CPU (native
-    gathers win there)."""
-    if dense is None:
-        dense = jax.default_backend() != "cpu"
-    fn = _residual_fn(state, prob, dense=dense)
+    new_cost, accepted)."""
+    fn = _residual_fn(state, prob)
     zero = (jnp.zeros((state.R.shape[0], 6)), jnp.zeros_like(state.X))
 
     # gauge fixing: camera 0 stays put by projecting it out of the Krylov

@@ -38,10 +38,16 @@ def make_texture(rng: np.random.RandomState, size: int = 512,
         cx, cy = rng.rand(2) * size
         sigma = 1.2 + rng.rand() ** 2 * 7.0
         val = rng.rand()  # target intensity of this blob
-        d2 = (xx - cx) ** 2 + (yy - cy) ** 2
+        # the blob's disk lies inside this box; pixels outside it are
+        # untouched, so the box only saves work
+        r = int(3.0 * sigma) + 2
+        y0, y1 = max(int(cy) - r, 0), min(int(cy) + r + 1, size)
+        x0, x1 = max(int(cx) - r, 0), min(int(cx) + r + 1, size)
+        tb = t[y0:y1, x0:x1]
+        d2 = (xx[y0:y1, x0:x1] - cx) ** 2 + (yy[y0:y1, x0:x1] - cy) ** 2
         m = d2 < (3.0 * sigma) ** 2
         alpha = np.exp(-0.5 * d2[m] / (sigma * sigma))
-        t[m] = (1 - alpha) * t[m] + alpha * val
+        tb[m] = (1 - alpha) * tb[m] + alpha * val
     t += 0.02 * rng.rand(size, size).astype(np.float32)
     return np.clip(t, 0.0, 1.0)
 
@@ -60,15 +66,17 @@ class Plane:
         self.tex = tex
 
 
-def corner_scene(rng: np.random.RandomState) -> List[Plane]:
+def corner_scene(rng: np.random.RandomState, texture_size: int = 512,
+                 n_blobs: int = 900) -> List[Plane]:
     """Floor + back wall + side wall around the corner (-2, 0, 4)."""
+    tex = lambda: make_texture(rng, texture_size, n_blobs)
     return [
         Plane((-2, 0, 0), (1, 0, 0), (0, 0, 1), 4.0, 4.0,
-              make_texture(rng)),                       # floor y=0
+              tex()),                                   # floor y=0
         Plane((-2, 0, 4), (1, 0, 0), (0, 1, 0), 4.0, 3.0,
-              make_texture(rng)),                       # back wall z=4
+              tex()),                                   # back wall z=4
         Plane((-2, 0, 0), (0, 0, 1), (0, 1, 0), 4.0, 3.0,
-              make_texture(rng)),                       # side wall x=-2
+              tex()),                                   # side wall x=-2
     ]
 
 
@@ -93,19 +101,46 @@ def arc_trajectory(n_frames: int, radius: float = 3.0,
     passes > 1 sweeps the arc back and forth (triangle wave): the camera
     revisits earlier positions, so a long sequence carries genuine loop
     closures for the pose graph (each pass crosses every arc position)."""
-    target = np.array([0.0, 1.2, 3.0])
     Rs, cs = [], []
     for i in range(n_frames):
         s = i / max(n_frames - 1, 1) * passes  # in [0, passes]
         seg = int(min(s, passes - 1e-9))
         frac = s - seg
         u = frac if seg % 2 == 0 else 1.0 - frac
-        a = (-0.5 + u) * sweep
-        c = np.array([radius * np.sin(a), 1.5 + 0.15 * np.sin(3 * a),
-                      3.0 - radius * np.cos(a)])
-        Rs.append(look_at(c, target))
+        R, c = arc_pose(u, radius, sweep)
+        Rs.append(R)
         cs.append(c)
     return np.stack(Rs), np.stack(cs)
+
+
+def arc_pose(u: float, radius: float = 3.0,
+             sweep: float = 1.2) -> Tuple[np.ndarray, np.ndarray]:
+    """(R_w2c, center) of the camera at position u in [0, 1] along the
+    arc of arc_trajectory."""
+    a = (-0.5 + u) * sweep
+    c = np.array([radius * np.sin(a), 1.5 + 0.15 * np.sin(3 * a),
+                  3.0 - radius * np.cos(a)])
+    return look_at(c, np.array([0.0, 1.2, 3.0])), c
+
+
+def scene_views(seed: int, h: int, w: int,
+                positions=(0.5,)) -> np.ndarray:
+    """Grayscale f32 views (len(positions), h, w) in [0, 1] of the corner
+    scene textured from `seed`, one per arc position in [0, 1]
+    (focal length 0.9 * w, principal point at the centre).
+
+    The seeded stand-in for photographs wherever the system needs an
+    image: tests, the server self-test and the chip smoke check. Its
+    textures are twice as fine as the SfM sequences' so that a 640x480
+    view holds a photograph's density of features (several hundred)."""
+    planes = corner_scene(np.random.RandomState(seed), 1024, 3600)
+    f = 0.9 * w
+    K = np.array([[f, 0, w / 2.0], [0, f, h / 2.0], [0, 0, 1.0]])
+    views = []
+    for u in positions:
+        R, c = arc_pose(u)
+        views.append(render(planes, K, R, c, h, w))
+    return np.stack(views)
 
 
 def render(planes: List[Plane], K: np.ndarray, R_w2c: np.ndarray,

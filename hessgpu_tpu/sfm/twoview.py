@@ -2,7 +2,7 @@
 triangulation.
 
 North-star extension (SURVEY.md intro + section 7.6): the reference repo has
-no SfM code; this layer is designed TPU-first from scratch. Everything is
+no SfM code; this layer is designed from scratch. Everything is
 vectorized and jittable: RANSAC evaluates all hypotheses as one batched
 computation (vmapped minimal solvers + one (H, N) residual matrix) instead
 of the classic sequential loop.
@@ -15,6 +15,15 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
+
+# A GPU may run an f32 matmul in TF32 (about three decimal digits); the
+# 3x3 and 9-column systems here feed SVDs and inlier thresholds, so every
+# product asks for full f32, as in sfm/ba.py.
+_HI = jax.lax.Precision.HIGHEST
+
+
+def _mm(a, b):
+    return jnp.matmul(a, b, precision=_HI)
 
 
 class TwoViewResult(NamedTuple):
@@ -53,8 +62,8 @@ def eight_point(p1, p2):
     F = vt[-1].reshape(3, 3)
     # rank-2 enforcement
     u, s, vt2 = jnp.linalg.svd(F)
-    F = (u * s.at[2].set(0.0)[None, :]) @ vt2
-    F = T2.T @ F @ T1
+    F = _mm(u * s.at[2].set(0.0)[None, :], vt2)
+    F = _mm(_mm(T2.T, F), T1)
     return F / (F[2, 2] + jnp.where(jnp.abs(F[2, 2]) < 1e-12, 1e-12, 0.0))
 
 
@@ -63,8 +72,8 @@ def sampson_error(F, p1, p2):
     ones = jnp.ones((p1.shape[0], 1), p1.dtype)
     x1 = jnp.concatenate([p1, ones], axis=1)
     x2 = jnp.concatenate([p2, ones], axis=1)
-    Fx1 = x1 @ F.T          # (N, 3)
-    Ftx2 = x2 @ F           # (N, 3)
+    Fx1 = _mm(x1, F.T)      # (N, 3)
+    Ftx2 = _mm(x2, F)       # (N, 3)
     num = jnp.sum(x2 * Fx1, axis=1) ** 2
     den = Fx1[:, 0] ** 2 + Fx1[:, 1] ** 2 + Ftx2[:, 0] ** 2 + Ftx2[:, 1] ** 2
     return num / (den + 1e-12)
@@ -127,14 +136,14 @@ def _weighted_eight_point(p1, p2, wts):
     _, _, vt = jnp.linalg.svd(A, full_matrices=True)
     F = vt[-1].reshape(3, 3)
     u, s, vt2 = jnp.linalg.svd(F)
-    F = (u * s.at[2].set(0.0)[None, :]) @ vt2
+    F = _mm(u * s.at[2].set(0.0)[None, :], vt2)
     T1 = jnp.stack([jnp.array([s1, 0.0, -s1 * m1[0]]),
                     jnp.array([0.0, s1, -s1 * m1[1]]),
                     jnp.array([0.0, 0.0, 1.0])])
     T2 = jnp.stack([jnp.array([s2, 0.0, -s2 * m2[0]]),
                     jnp.array([0.0, s2, -s2 * m2[1]]),
                     jnp.array([0.0, 0.0, 1.0])])
-    return T2.T @ F @ T1
+    return _mm(_mm(T2.T, F), T1)
 
 
 # ---------------------------------------------------------------------------
@@ -142,17 +151,17 @@ def _weighted_eight_point(p1, p2, wts):
 # ---------------------------------------------------------------------------
 
 def essential_from_fundamental(F, K1, K2):
-    E = K2.T @ F @ K1
+    E = _mm(_mm(K2.T, F), K1)
     u, s, vt = jnp.linalg.svd(E)
     # project to the essential manifold: singular values (1, 1, 0)
-    return u @ jnp.diag(jnp.array([1.0, 1.0, 0.0])) @ vt
+    return _mm(_mm(u, jnp.diag(jnp.array([1.0, 1.0, 0.0]))), vt)
 
 
 def triangulate(P1, P2, p1, p2):
     """Linear (DLT) triangulation. P*: (3, 4) projections; p*: (N, 2).
 
     Returns (N, 3) points. Solved per point via the 4x4 normal equations -
-    no SVD in the inner loop, TPU-friendly.
+    no SVD in the inner loop.
     """
     def one(x1, x2):
         A = jnp.stack([
@@ -162,7 +171,7 @@ def triangulate(P1, P2, p1, p2):
             x2[1] * P2[2] - P2[1],
         ])
         # nullspace via eigh of A^T A (4x4)
-        _, v = jnp.linalg.eigh(A.T @ A)
+        _, v = jnp.linalg.eigh(_mm(A.T, A))
         X = v[:, 0]
         return X[:3] / (X[3] + jnp.where(jnp.abs(X[3]) < 1e-12, 1e-12, 0.0))
 
@@ -179,14 +188,14 @@ def recover_pose(E, p1, p2, K1, K2, valid=None):
     # enforce proper rotations
     u = u * jnp.sign(jnp.linalg.det(u))
     vt = vt * jnp.sign(jnp.linalg.det(vt))
-    R1 = u @ W @ vt
-    R2 = u @ W.T @ vt
+    R1 = _mm(_mm(u, W), vt)
+    R2 = _mm(_mm(u, W.T), vt)
     t = u[:, 2]
 
-    n1 = (jnp.concatenate([p1, jnp.ones((p1.shape[0], 1))], 1)
-          @ jnp.linalg.inv(K1).T)[:, :2]
-    n2 = (jnp.concatenate([p2, jnp.ones((p2.shape[0], 1))], 1)
-          @ jnp.linalg.inv(K2).T)[:, :2]
+    n1 = _mm(jnp.concatenate([p1, jnp.ones((p1.shape[0], 1))], 1),
+             jnp.linalg.inv(K1).T)[:, :2]
+    n2 = _mm(jnp.concatenate([p2, jnp.ones((p2.shape[0], 1))], 1),
+             jnp.linalg.inv(K2).T)[:, :2]
     if valid is None:
         valid = jnp.ones(p1.shape[0], bool)
 
@@ -196,7 +205,7 @@ def recover_pose(E, p1, p2, K1, K2, valid=None):
         P2 = jnp.concatenate([R, tt[:, None]], axis=1)
         X = triangulate(P1, P2, n1, n2)
         z1 = X[:, 2]
-        z2 = (X @ R.T + tt)[:, 2]
+        z2 = (_mm(X, R.T) + tt)[:, 2]
         front = (z1 > 0) & (z2 > 0) & valid
         return jnp.sum(front.astype(jnp.int32)), X, front
 
@@ -235,9 +244,9 @@ def _dlt_pose6(X, x_norm):
     P = vt[-1].reshape(3, 4)
     M = P[:, :3]
     um, sm, vtm = jnp.linalg.svd(M)
-    d = jnp.sign(jnp.linalg.det(um @ vtm))
-    R = um @ jnp.diag(jnp.stack([jnp.float32(1.0), jnp.float32(1.0), d])) \
-        @ vtm
+    d = jnp.sign(jnp.linalg.det(_mm(um, vtm)))
+    R = _mm(_mm(um, jnp.diag(jnp.stack([jnp.float32(1.0), jnp.float32(1.0),
+                                        d]))), vtm)
     scale = jnp.mean(sm) * d
     ok = jnp.abs(scale) > 1e-12
     t = P[:, 3] / jnp.where(ok, scale, 1.0)
@@ -249,7 +258,7 @@ def ransac_pnp(key, pts3d, pts2d, valid, K, threshold: float = 8.0,
                num_hypotheses: int = 256) -> PnPResult:
     """Batched-hypothesis PnP: register a camera from 2D-3D matches.
 
-    TPU-native replacement for the sequential NumPy DLT loop: all
+    Replacement for the sequential NumPy DLT loop: all
     hypotheses' 6-point DLTs run as one vmapped batch and score against
     the full correspondence set in a single (H, N) residual matrix - the
     same pattern as ransac_fundamental.
@@ -260,7 +269,7 @@ def ransac_pnp(key, pts3d, pts2d, valid, K, threshold: float = 8.0,
     n = pts3d.shape[0]
     Ki = jnp.linalg.inv(K)
     ones = jnp.ones((n, 1))
-    norm2d = (jnp.concatenate([pts2d, ones], axis=1) @ Ki.T)[:, :2]
+    norm2d = _mm(jnp.concatenate([pts2d, ones], axis=1), Ki.T)[:, :2]
 
     probs = valid.astype(jnp.float32)
     probs = probs / jnp.maximum(jnp.sum(probs), 1e-12)
@@ -270,9 +279,9 @@ def ransac_pnp(key, pts3d, pts2d, valid, K, threshold: float = 8.0,
         lambda i: _dlt_pose6(pts3d[i], norm2d[i]))(idx)
 
     def reproj_err(R, t):
-        xc = pts3d @ R.T + t
+        xc = _mm(pts3d, R.T) + t
         z = jnp.maximum(xc[:, 2], 1e-9)
-        pix = (xc[:, :2] / z[:, None]) @ K[:2, :2].T + K[:2, 2]
+        pix = _mm(xc[:, :2] / z[:, None], K[:2, :2].T) + K[:2, 2]
         err = jnp.linalg.norm(pix - pts2d, axis=1)
         return jnp.where((xc[:, 2] > 0) & valid, err, jnp.inf)
 

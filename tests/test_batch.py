@@ -57,46 +57,6 @@ def test_run_pipeline_batched_equals_single(gray_small):
         assert int(baux["pre_count"][i]) == int(saux["pre_count"])
 
 
-def test_batched_pallas_kernels_equal_single(gray_small):
-    """Interpret-mode check that the (B, row-blocks)-gridded conv and
-    detect kernels reproduce their single-image variants exactly."""
-    from hessgpu_tpu.ops.pallas.conv import octave_chain_pallas
-    from hessgpu_tpu.ops.pallas.detect import detect_octave_pallas
-    from hessgpu_tpu.params import gaussian_taps
-
-    rng = np.random.RandomState(3)
-    taps = [tuple(gaussian_taps(s)) for s in (1.2, 1.4, 1.6, 1.8)]
-    octs = []
-    for _ in range(2):
-        base = rng.rand(192, 256).astype(np.float32)
-        octs.append(np.asarray(octave_chain_pallas(
-            jnp.asarray(base), taps, interpret=True)))
-    batched = np.asarray(octave_chain_pallas(
-        jnp.asarray(np.stack([o[0] for o in octs])), taps, interpret=True))
-    for i in range(2):
-        np.testing.assert_array_equal(batched[i], octs[i])
-
-    norms = [1.0, 2.0, 3.0, 4.0, 5.0]
-    kw = dict(threshold=1e-5, edge_threshold=10.0, interpret=True)
-    single = [detect_octave_pallas(jnp.asarray(octs[i]), norms, [1, 2, 3],
-                                   **kw) for i in range(2)]
-    both = detect_octave_pallas(jnp.asarray(np.stack(octs)), norms,
-                                [1, 2, 3], **kw)
-    total = 0
-    for i in range(2):
-        for f in single[i][0]._fields:
-            np.testing.assert_array_equal(
-                np.asarray(getattr(both[0], f)[i]),
-                np.asarray(getattr(single[i][0], f)),
-                err_msg=f"map field {f}")
-        total += int(np.asarray(both[0].valid[i]).sum())
-        np.testing.assert_array_equal(np.asarray(both[1][i]),
-                                      np.asarray(single[i][1]))
-        np.testing.assert_array_equal(np.asarray(both[2][i]),
-                                      np.asarray(single[i][2]))
-    assert total > 10, "degenerate: no detections exercised"
-
-
 def test_bucket_images():
     imgs = [np.ones((100, 150), np.float32),
             np.ones((240, 320), np.float32),

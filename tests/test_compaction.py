@@ -99,63 +99,6 @@ def test_compact_sorted_equals_compact_mask(rng):
         np.testing.assert_array_equal(np.asarray(cm[1][0]),
                                       np.asarray(csb[1][0][b]))
 
-def test_packed_globalize_matches_eager():
-    """PackedList + deferred payload pickup (_globalize_packed) must
-    produce the same GlobalTable as the eager FeatureList path."""
-    import jax
-    import numpy as np
-    from hessgpu_tpu.ops.compaction import (_pack_payload,
-                                            compact_octave_keypoints,
-                                            compact_octave_maps_packed)
-    from hessgpu_tpu.ops.keypoint import KeypointMaps
-    from hessgpu_tpu.pyramid import _globalize, _globalize_packed
-
-    rng = np.random.RandomState(2)
-    octs = [(40, 72), (20, 36)]
-    nk = 2
-    sigmas = [1.6, 2.0]
-    step = 1.26
-    caps = [64, 32]
-    lists_e, lists_p, p1s, p2s = [], [], [], []
-    lw, lb = [], []
-    base = 0
-    lid = 0
-    for oi, (h, w) in enumerate(octs):
-        valid = rng.rand(nk, h, w) < 0.01
-        valid[:, 0, :] = valid[:, -1, :] = False
-        valid[:, :, 0] = valid[:, :, -1] = False
-        maps = KeypointMaps(
-            valid=jnp.asarray(valid),
-            response=jnp.asarray(
-                (rng.randn(nk, h, w) * 0.1).astype(np.float16)
-                .astype(np.float32)),
-            dx=jnp.asarray(rng.uniform(-.9, .9, (nk, h, w)).astype(np.float32)),
-            dy=jnp.asarray(rng.uniform(-.9, .9, (nk, h, w)).astype(np.float32)),
-            ds=jnp.asarray(rng.uniform(-.9, .9, (nk, h, w)).astype(np.float32)),
-            ftype=jnp.asarray(rng.randint(0, 3, (nk, h, w)), jnp.int32),
-        )
-        lists_e.append(compact_octave_keypoints(maps, sigmas, step, caps[oi]))
-        plist, p1, p2 = compact_octave_maps_packed(maps, lid, caps[oi])
-        lists_p.append(plist)
-        p1s.append(p1.reshape(-1))
-        p2s.append(p2.reshape(-1))
-        for r in range(nk):
-            lw.append(w)
-            lb.append(base + r * h * w)
-        base += nk * h * w
-        lid += nk
-
-    G = 96
-    te = _globalize(lists_e, G)
-    tp = _globalize_packed(lists_p, jnp.concatenate(p1s),
-                           jnp.concatenate(p2s), lw, lb,
-                           sigmas * len(octs), step, G)
-    assert int(np.asarray(te.count())) > 5
-    for f in te._fields:
-        np.testing.assert_array_equal(np.asarray(getattr(tp, f)),
-                                      np.asarray(getattr(te, f)),
-                                      err_msg=f"field {f}")
-
 
 def test_row_cap_scales_with_width_dense_flood():
     """Saddle-flood parity (VERDICT r4 #8): a 2048-wide row holding more
@@ -164,9 +107,7 @@ def test_row_cap_scales_with_width_dense_flood():
     (the reference only drops at the per-level area cap,
     PyramidCU.cpp:443-451). 51 valid columns per flooded row exercises
     the width-scaled cap (_row_cap(2048) = 64 > 51 > 32)."""
-    from hessgpu_tpu.ops.compaction import (_row_cap,
-                                            compact_octave_keypoints,
-                                            compact_octave_maps_packed)
+    from hessgpu_tpu.ops.compaction import _row_cap, compact_octave_keypoints
     from hessgpu_tpu.ops.keypoint import KeypointMaps
 
     assert _row_cap(640) == 32 and _row_cap(2048) == 64
@@ -197,8 +138,3 @@ def test_row_cap_scales_with_width_dense_flood():
     np.testing.assert_array_equal(
         np.floor(np.asarray(fl.x[0][:n])).astype(int), cols)
 
-    # packed twin sees the same membership
-    pl_, _, _ = compact_octave_maps_packed(maps, 0, cap)
-    pk = np.asarray(pl_.packed[0][:n])
-    np.testing.assert_array_equal(pk >> 20, rows)
-    np.testing.assert_array_equal((pk >> 8) & 0xFFF, cols)

@@ -70,31 +70,3 @@ def test_facade_run_with_keypoints(gray_small, detected):
     sift.set_keypoint_list(keys)
     out2 = sift.run_on_current()
     np.testing.assert_allclose(out2["desc"], out["desc"], atol=1e-5)
-
-
-def test_describe_keypoints_pallas_path_matches_jnp(gray_small):
-    """The accelerator re-entry path (one fused program through the
-    Pallas window-DMA kernels) agrees with the host-binned jnp path."""
-    from hessgpu_tpu import HessianSift, SiftConfig
-    from hessgpu_tpu.describe import describe_keypoints
-
-    feats = HessianSift(SiftConfig()).run(gray_small)
-    n = min(24, feats["x"].shape[0])
-    keys = np.stack([feats["x"][:n], feats["y"][:n],
-                     feats["sigma"][:n], feats["theta"][:n]], 1)
-
-    want = describe_keypoints(gray_small, keys, has_orientation=True)
-    got = describe_keypoints(gray_small, keys, has_orientation=True,
-                             _force_pallas=True)
-    np.testing.assert_array_equal(got["theta"], want["theta"])
-    cos = np.sum(got["desc"] * want["desc"], axis=1)
-    assert (cos > 0.999).mean() > 0.9, cos
-
-    # orientation-computing mode too
-    want2 = describe_keypoints(gray_small, keys[:, :3],
-                               has_orientation=False)
-    got2 = describe_keypoints(gray_small, keys[:, :3],
-                              has_orientation=False, _force_pallas=True)
-    dth = np.abs(np.mod(got2["theta"] - want2["theta"] + np.pi,
-                        2 * np.pi) - np.pi)
-    assert (dth < 0.05).mean() > 0.85, dth

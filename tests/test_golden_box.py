@@ -7,26 +7,37 @@ implementation, so we check cross-implementation repeatability and
 descriptor agreement rather than bitwise equality.
 """
 
+import os
+
 import numpy as np
 import pytest
 
 from hessgpu_tpu import HessianSift, SiftConfig
 from hessgpu_tpu.formats import load_sift_text
 
-GOLDEN = "/root/reference/doc/evaluation/box.siftgpu"
-IMAGE = "/root/reference/doc/evaluation/box.pgm"
+
+@pytest.fixture(scope="module")
+def box_dir():
+    """doc/evaluation of a reference checkout named by
+    HESSGPU_REFERENCE_DIR; the fixture is not part of this repository."""
+    d = os.path.join(os.environ.get("HESSGPU_REFERENCE_DIR", ""),
+                     "doc", "evaluation")
+    if not os.path.exists(os.path.join(d, "box.siftgpu")):
+        pytest.skip("reference golden fixture absent: set "
+                    "HESSGPU_REFERENCE_DIR to a sloup/hessgpu checkout")
+    return d
 
 
 @pytest.fixture(scope="module")
-def golden():
-    return load_sift_text(GOLDEN)
+def golden(box_dir):
+    return load_sift_text(os.path.join(box_dir, "box.siftgpu"))
 
 
 @pytest.fixture(scope="module")
-def ours():
+def ours(box_dir):
     cfg = SiftConfig.parse_args(["-w", "3", "-fo", "-1", "-loweo"])
     cfg.detector = "dog"
-    return HessianSift(cfg).run(IMAGE)
+    return HessianSift(cfg).run(os.path.join(box_dir, "box.pgm"))
 
 
 def test_feature_count_comparable(golden, ours):

@@ -185,37 +185,6 @@ def test_sharded_topk_matches_pipeline(mesh, rng):
                                np.asarray(table.desc)[wv], atol=1e-5)
 
 
-def test_sharded_patch_kernels_match_jnp(mesh, rng):
-    """The Pallas patch-kernel path over band+halo canvases (the TPU
-    default) equals the jnp helper path, interpret mode, 8 shards."""
-    from hessgpu_tpu.config import SiftConfig
-    from hessgpu_tpu.parallel.spatial import sharded_detect_and_describe
-
-    cfg = SiftConfig()
-    cfg.threshold = 0.001
-    cfg.max_level_features = 64
-    # f32 canvas: this test pins kernel-vs-jnp math at tight tolerances;
-    # bf16 STORAGE quantization (the TPU default) is covered separately
-    # by tests/test_pallas_patch.py::test_*_bf16_stack
-    cfg.canvas_bf16 = False
-    img = _smooth_image(rng, 512, 128)
-
-    a = sharded_detect_and_describe(jnp.asarray(img), cfg, mesh,
-                                    use_pallas=False)
-    b = sharded_detect_and_describe(jnp.asarray(img), cfg, mesh,
-                                    use_pallas=True)
-    va, vb = np.asarray(a.valid), np.asarray(b.valid)
-    assert va.sum() > 20
-    np.testing.assert_array_equal(va, vb)
-    for fa, fb in ((a.x, b.x), (a.y, b.y), (a.sigma, b.sigma),
-                   (a.theta, b.theta), (a.response, b.response)):
-        np.testing.assert_allclose(np.asarray(fa)[va], np.asarray(fb)[vb],
-                                   rtol=1e-6, atol=1e-5)
-    # MXU f32 accumulation differs from the VPU sum order by ~1e-6 rel
-    np.testing.assert_allclose(np.asarray(a.desc)[va],
-                               np.asarray(b.desc)[vb], atol=2e-4)
-
-
 def test_sharded_detect_multi_octave_matches_one_device(mesh, rng):
     """Multi-octave (sharded octave 0 + replicated small octaves): the
     8-device result equals the 1-device run of the same code path."""

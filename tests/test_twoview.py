@@ -93,7 +93,7 @@ def test_type_aware_mask():
 
 def test_ransac_pnp_recovers_pose(rng):
     """Batched-hypothesis PnP recovers a camera from 2D-3D matches with
-    outliers (TPU-native replacement for the sequential DLT loop)."""
+    outliers (replacement for the sequential DLT loop)."""
     from hessgpu_tpu.sfm.twoview import ransac_pnp
 
     K, R, t, X, p1, p2 = _synthetic_scene(rng, n=128, noise=0.2,
